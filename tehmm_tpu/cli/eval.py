@@ -296,8 +296,8 @@ def _write_pd_streaming(opts, model, tables) -> None:
 
 # below this many total positions the sequential exact decoder is
 # effectively free — make its unconditional bit-exactness the DEFAULT
-# (round-3 VERDICT weak #8: the stitching heuristic's guarantee rests on
-# "all boundaries agreed this time"; small inputs shouldn't rest on it)
+# (the stitching heuristic's guarantee rests on "all boundaries agreed
+# this time"; small inputs shouldn't rest on it)
 _EXACT_AUTO_LIMIT = 1 << 18
 
 

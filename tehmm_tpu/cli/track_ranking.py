@@ -20,8 +20,8 @@ import os
 import shlex
 import sys
 
-from tehmm_tpu.cli.benchmark import run_config, run_config_on, \
-    worker_platform
+from tehmm_tpu.cli.benchmark import make_worker_pool, run_config, \
+    run_config_on, worker_platform
 from tehmm_tpu.io.trackxml import TrackList
 from tehmm_tpu.utils.common import add_logging_options, logger, \
     set_logging_from_options
@@ -43,10 +43,10 @@ def make_parser() -> argparse.ArgumentParser:
                    help="evaluate a step's candidate tracks "
                         "concurrently in worker processes (candidates "
                         "within a step are independent, like benchmark "
-                        "configs).  Same single-accelerator caveat as "
-                        "tehmm-benchmark --numProcesses: workers "
-                        "contend for one chip; use TEHMM_PLATFORM=cpu "
-                        "for truly parallel CPU sweeps")
+                        "configs).  As with tehmm-benchmark "
+                        "--numProcesses, each worker gets a GPU of its "
+                        "own; use TEHMM_PLATFORM=cpu for parallel CPU "
+                        "sweeps")
     add_logging_options(p)
     return p
 
@@ -95,13 +95,9 @@ def main(argv=None) -> int:
         accs: dict[str, float] = {}
         if opts.numProcesses > 1:
             import concurrent.futures as cf
-            import multiprocessing as mp
 
-            ctx = mp.get_context("spawn")   # fresh JAX per worker
             plat = worker_platform()
-            with cf.ProcessPoolExecutor(
-                max_workers=opts.numProcesses, mp_context=ctx
-            ) as ex:
+            with make_worker_pool(opts.numProcesses) as ex:
                 futs = {
                     ex.submit(run_config_on, plat, *args): cand
                     for cand, args in jobs

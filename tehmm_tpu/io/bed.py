@@ -7,7 +7,7 @@ neither is installed here (SURVEY.md §7 verified environment), so this is
 a self-contained parser.  Output formatting is plain tab-separated
 ``chrom  start  end  [name  [score  [strand]]]`` with a trailing newline
 per record — the format the parity contract is defined on (BED paths
-bit-exact, BASELINE.md).
+bit-exact against the golden files in tests/data/golden).
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ match bonus applied per track when the two ends carry the same symbol
 
 DP: CYK over span diagonals d = j - i, each diagonal a [L-d, S] tensor
 updated from the previous one (HMM-shaped max-plus/LSE batched matvec —
-the same MXU pattern as ops/dp.py), under ``jax.lax.scan`` with a
+the same matmul pattern as ops/dp.py), under ``jax.lax.scan`` with a
 fixed-width carry.  Complexity O(L · D · S²) with D = --maxSpan (TE
 elements are bounded; full-triangle O(L²) available with D = L).
 
@@ -111,9 +111,9 @@ def _logmatmulexp(x: jax.Array, prob_mat: jax.Array) -> jax.Array:
 
     The CFG recursions' per-diagonal ``LSE_k(x[i, k] + log_M[k or ·, ·])``
     contractions are [n, S]·[S, S] log-matmul-exps; materializing the
-    [n, S, S] sum and reducing it on the VPU is the O(S²)-per-cell cost
+    [n, S, S] sum and reducing it elementwise is the O(S²)-per-cell cost
     that dominated the inside/outside passes.  Shifting each row by its
-    max turns the contraction into one probability-space MXU matmul
+    max turns the contraction into one probability-space matmul
     (every addend <= 1, so no overflow; same max-shift recipe as the
     scaled HMM scans in ops/dp.py and the xi recombine below).
 
@@ -247,8 +247,8 @@ def cfg_inside_loglik(
     the whole sequence spanning [0, L-1] from the start distribution.
     Requires max_span >= L to cover the root span.
 
-    The per-diagonal child contractions run as probability-space MXU
-    matmuls (_logmatmulexp), not [L, S, S] VPU reductions."""
+    The per-diagonal child contractions run as probability-space
+    matmuls (_logmatmulexp), not [L, S, S] elementwise reductions."""
     L, S = obs.shape
     D = min(max_span, L)
     trans_pT = jnp.exp(params.hmm.log_trans).T        # [s', s]
@@ -506,9 +506,8 @@ def _cfg_traceback_device(scores, ptr_s, ptr_r, log_start):
     the pointer tables emits the left-edge state per step and scatters
     the pair-partner states afterwards.  Keeping the traceback on
     device means the O(W²·S) chart never crosses to the host — only
-    the int32 path does (the host traceback moved ~6 MB of chart per
-    512-position window, which is what made chunked CFG decode
-    transfer-bound)."""
+    the int32 path does (a host traceback would move ~6 MB of chart
+    per 512-position window)."""
     D, W, S = scores.shape
     root_scores = scores[W - 1, 0] + log_start
     s0 = jnp.argmax(root_scores).astype(jnp.int32)
@@ -545,8 +544,9 @@ def _cfg_decode_batch(params, obs_wins, sym_wins, max_span):
     """vmapped CYK chart + in-device traceback over a batch of
     equal-length windows — ONE device dispatch for the whole pass
     instead of a Python loop of per-window dispatches with per-window
-    chart transfers (measured 1K pos/s sequential and ~0.2K pos/s
-    batched-with-host-traceback vs 1.5M pos/s for this design)."""
+    chart transfers (the per-window loop and the host traceback were
+    each slower by orders of magnitude on the accelerator this was
+    first built for; not re-measured on the GPU)."""
 
     def one(o, sy):
         scores, ptr_s, ptr_r = cfg_viterbi_chart(

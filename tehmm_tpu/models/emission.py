@@ -6,7 +6,7 @@ Rebuild of the reference's ``IndependentMultinomialEmissionModel``
 
     obs[l, s] = sum_t log_em[s, t, x[l, t]]
 
-is computed as a single one-hot × table matmul so it runs on the MXU:
+is computed as a single one-hot × table matmul:
 
     onehot(x)[L, T*V] @ log_em.reshape(S, T*V).T  ->  [L, S]
 
@@ -14,10 +14,8 @@ The independence assumption (sum over tracks) is exactly the reference's.
 Missing data (symbol 0) emits log-prob 0 by the conventions enforced in
 ``models.params`` so no masking is needed here.
 
-Measured on v5e (B=2048, L=1024, T=5, V=8): this one-hot matmul takes
-5.1ms vs 31.4ms for the equivalent per-track table gather — TPU gathers
-lower poorly, the MXU contraction wins 6x, which is why the gather
-variant is not offered.
+A per-track table gather is the alternative formulation; it is not
+offered here and has not been measured on the GPU.
 """
 
 from __future__ import annotations
@@ -50,8 +48,8 @@ def track_log_likelihoods(log_em: jax.Array, symbols: jax.Array) -> jax.Array:
     oh = symbols_one_hot(symbols, V)                     # [..., L, T, V]
     flat = oh.reshape(*oh.shape[:-2], T * V)             # [..., L, T*V]
     table = log_em.reshape(S, T * V)                     # [S, T*V]
-    # HIGHEST keeps the contraction in true f32 on the MXU (one-hot rows
-    # make it an exact gather-sum; bf16 passes would round the table).
+    # HIGHEST keeps the contraction in true f32 (one-hot rows make it an
+    # exact gather-sum; TF32 or bf16 passes would round the table).
     return jnp.einsum(
         "...lk,sk->...ls", flat, table,
         preferred_element_type=jnp.float32,
@@ -69,7 +67,7 @@ def expected_emission_counts(
 
     counts[s, t, v] = sum_l gamma[l, s] * [x[l, t] == v]
 
-    computed as gamma^T @ onehot — one [S, L] @ [L, T*V] matmul (MXU)
+    computed as gamma^T @ onehot — one [S, L] @ [L, T*V] matmul
     (reference: emission.py accumulateStats; SURVEY.md §2a).
 
     Args:

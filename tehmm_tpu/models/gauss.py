@@ -1,8 +1,8 @@
 """Gaussian (continuous-valued) track emissions.
 
 Reference: track.py ``distribution="gaussian"`` [R?] — round 1 accepted
-the attribute but binned the values into a multinomial (VERDICT round-1
-missing item #5).  This module implements REAL normal emissions: a
+the attribute; binning the values into a multinomial loses them.  This
+module implements REAL normal emissions: a
 gaussian track contributes
 
     log N(x[l, g] | mu[s, g], var[s, g])
@@ -13,10 +13,9 @@ categorical term, with per-state mean/variance learned by EM
 (NaN values) contribute nothing — the same convention as the
 categorical missing symbol 0.
 
-TPU-first formulation: the per-position per-state log-density is a sum
-of three ``[B·L, G] @ [G, S]`` matmuls (coefficients of 1, x, x²), so
-no ``[B, L, S, G]`` tensor is ever materialized and the work rides the
-MXU.  Gaussian tracks keep an all-missing symbols column so every
+Formulation: the per-position per-state log-density is a sum of three
+``[B·L, G] @ [G, S]`` matmuls (coefficients of 1, x, x²), so no
+``[B, L, S, G]`` tensor is ever materialized.  Gaussian tracks keep an all-missing symbols column so every
 categorical code path (chunking, batching, engines) is untouched; the
 values ride a parallel float matrix on the TrackTable.
 """
@@ -112,9 +111,9 @@ def gauss_log_likelihoods(
     mask = jnp.isfinite(values).astype(jnp.float32)
     x = jnp.where(mask > 0, values, 0.0)
     # three [.., G] @ [G, S] contractions — no [.., S, G] intermediate.
-    # HIGHEST precision: the TPU default (single-pass bf16) rounds the
-    # fixed coefficients identically at every position, biasing the
-    # total log-likelihood by ~1e-5 relative per 256 positions.
+    # HIGHEST precision: a reduced-precision default (TF32 on the GPU)
+    # rounds the fixed coefficients identically at every position,
+    # biasing the total log-likelihood systematically.
     kw = dict(precision=jax.lax.Precision.HIGHEST)
     return (
         jnp.matmul(mask, c0.T, **kw)

@@ -2,7 +2,7 @@
 
 The reference keeps parameters as attributes of a mutable ``MultitrackHmm``
 object (reference: hmm.py `MultitrackHmm`, basehmm.py `_BaseHMM`; SURVEY.md
-§2a).  The TPU rebuild represents them as an immutable pytree of arrays so
+§2a).  The rebuild represents them as an immutable pytree of arrays so
 the whole EM step is a pure jittable function and the parameters shard /
 replicate naturally under ``jax.sharding``.
 

@@ -10,7 +10,7 @@ per-step S×S operators
 
 under log-matmul-exp ``(a ⊗ b)[i,j] = LSE_k a[i,k] + b[k,j]``;
 ``jax.lax.associative_scan`` evaluates all prefixes in O(log L) depth
-with S×S matrix products — MXU-shaped work instead of a latency-bound
+with S×S matrix products — matrix-unit work instead of a latency-bound
 sequential scan.  The max-plus semiring gives the Viterbi analogue.
 
 Trade-off: ~2·L·S³ FLOPs total vs the sequential scan's L·S² per batch

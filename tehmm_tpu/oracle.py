@@ -3,7 +3,7 @@
 The reference repo's math core is pure NumPy (reference: basehmm.py —
 vendored pre-0.16 sklearn `hmm.py`; SURVEY.md §2a).  With the reference
 mount empty (SURVEY.md provenance notice), this module serves as the
-executable specification the TPU kernels are tested against, written in the
+executable specification the device kernels are tested against, written in the
 same straightforward O(L·S²) loop style the reference uses, plus the
 brute-force all-paths enumerators the reference's own tests use as *their*
 oracle (SURVEY.md §4: "validated against brute-force enumeration over all

@@ -1,8 +1,7 @@
 """Data-parallel CFG training and decode across the device mesh.
 
-Round-3 VERDICT missing #4: the pair-grammar paths (models/cfg.py,
-models/cfg_em.py) ran single-device while the HMM EM/decode had full
-mesh twins.  CFG windows are independent full-span parses — exactly the
+The pair-grammar paths (models/cfg.py, models/cfg_em.py) get the same
+mesh twins as the HMM EM/decode.  CFG windows are independent full-span parses — exactly the
 shape the ``data`` axis wants: windows shard over devices, each device
 runs the vmapped inside-outside / CYK kernels on its local window block,
 and the only collectives are a ``psum`` of the (already psum-able)
@@ -84,11 +83,14 @@ def sharded_cfg_em_group(
         stats_b, gamma_b, e_m, e_t = jax.vmap(
             cfg_em_stats, in_axes=(None, 0, 0)
         )(cfg_params, obs, sym)
+        # f32 sums: an unqualified f32 contraction may run in TF32
+        hi = jax.lax.Precision.HIGHEST
         stats = jax.tree.map(
-            lambda x: jnp.einsum("n,n...->...", valid, x), stats_b
+            lambda x: jnp.einsum("n,n...->...", valid, x, precision=hi),
+            stats_b,
         )
-        e_m = jnp.einsum("n,ns->s", valid, e_m)
-        e_t = jnp.einsum("n,ns->s", valid, e_t)
+        e_m = jnp.einsum("n,ns->s", valid, e_m, precision=hi)
+        e_t = jnp.einsum("n,ns->s", valid, e_t, precision=hi)
         if has_gauss:
             gm = gauss_stats(gamma_b * valid[:, None, None], vals)
         else:

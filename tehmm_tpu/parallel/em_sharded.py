@@ -3,8 +3,9 @@
 SURVEY.md §2c DP row and §7 layer 6: genome chunks are sharded over the
 ``data`` mesh axis with ``jax.shard_map``; each device computes the EM
 sufficient statistics of its chunk shard locally, the EmStats pytree and
-total log-likelihood are summed with ``jax.lax.psum`` (ICI within a
-slice, DCN across hosts), and the M-step runs replicated on every device.
+total log-likelihood are summed with ``jax.lax.psum`` (NCCL: NVLink
+between the cards of a host, the network across hosts), and the M-step
+runs replicated on every device.
 This is the whole distributed story — no other collective is required
 for training (BASELINE.json: "EM sufficient statistics are merged via
 jax.lax.psum before the M-step").
@@ -23,7 +24,7 @@ from tehmm_tpu.parallel.mesh import DATA_AXIS
 from tehmm_tpu.utils.common import EPSILON
 
 
-@partial(jax.jit, static_argnames=("mesh", "matmul"))
+@partial(jax.jit, static_argnames=("mesh", "matmul", "engine", "interpret"))
 def sharded_em_stats(
     params: HmmParams,
     symbols: jax.Array,
@@ -33,6 +34,8 @@ def sharded_em_stats(
     obs_weights: jax.Array | None = None,
     gauss_params=None,
     gauss_values: jax.Array | None = None,
+    engine: str = "auto",
+    interpret: bool = False,
 ) -> em_ops.EmStats:
     """E-step with chunks sharded over the data axis.
 
@@ -45,6 +48,8 @@ def sharded_em_stats(
         (models/gauss.py); values shard over the data axis like symbols
         and the moment sums psum-merge with the rest of the EmStats
         pytree.
+      engine / interpret: the recurrence engine of every device's local
+        E-step (ops/gpu_kernels.select_engine).
 
     Returns:
       Globally summed EmStats, replicated on every device.
@@ -61,11 +66,13 @@ def sharded_em_stats(
             i += 1
         if has_g:
             gp, gv = rest[i], rest[i + 1]
-        # "auto": each device runs the streaming Pallas engine on its
-        # local shard on TPU, the XLA scans on CPU meshes (tests)
+        # "auto": each device runs the GPU kernels on its local shard
+        # on a GPU mesh (inside their envelope), the XLA scans on CPU
+        # meshes (tests)
         stats = em_ops.em_sufficient_stats(
             params, symbols, lengths, matmul=matmul, obs_weights=w,
-            engine="auto", gauss_params=gp, gauss_values=gv,
+            engine=engine, gauss_params=gp, gauss_values=gv,
+            interpret=interpret,
         )
         return jax.lax.psum(stats, DATA_AXIS)
 
@@ -77,8 +84,12 @@ def sharded_em_stats(
     if has_g:
         args.extend([gauss_params, gauss_values])
         in_specs.extend([P(), P(DATA_AXIS)])
+    # check_vma=False: the GPU kernels' pallas_call does not type its
+    # outputs' variance over mesh axes; the psum above makes the
+    # statistics replicated either way
     fn = jax.shard_map(
-        local, mesh=mesh, in_specs=tuple(in_specs), out_specs=P()
+        local, mesh=mesh, in_specs=tuple(in_specs), out_specs=P(),
+        check_vma=False,
     )
     return fn(*args)
 

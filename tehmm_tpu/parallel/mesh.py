@@ -1,9 +1,11 @@
 """Device mesh construction and multi-host initialization.
 
 SURVEY.md §2c: the rebuild's data-parallel axis is a 1-D ``data`` mesh of
-all chips (optionally 2-D ``data × state`` for very large state counts).
-XLA collectives ride ICI within a slice and DCN across hosts under GSPMD
-with no code change.  The reference has no counterpart (single process,
+all devices (optionally 2-D ``data × state`` for very large state
+counts).  XLA hands the collectives to NCCL, over NVLink between the
+cards of one host and the network across hosts, with no code change.
+The cards of a host are joined all to all, so the mesh follows the
+algorithm alone.  The reference has no counterpart (single process,
 SURVEY.md §5 "Distributed comm backend").
 """
 
@@ -60,25 +62,22 @@ def stage_batch(arr, mesh: jax.sharding.Mesh | None):
     """Host array -> device array ready for ``shard_map`` over the data
     axis.
 
-    Single process: a plain committed array (shard_map re-shards it).
-    Multi-process: every process holds the full host array (genome data
-    is on shared storage, like the reference's single-host load) and
-    materializes ONLY its addressable shards via
-    ``jax.make_array_from_callback`` — the global array is assembled
-    without any cross-host data movement (SURVEY.md §7 layer 6)."""
-    import jax.numpy as jnp
-    import numpy as _np
-
-    from tehmm_tpu.utils.transfer import fast_device_put
-
+    Single process: each device receives its row shard directly, so
+    the data never passes through one device and shard_map finds it
+    already in place on every call.  Multi-process: every process holds
+    the full host array (genome data is on shared storage, like the
+    reference's single-host load) and materializes ONLY its addressable
+    shards via ``jax.make_array_from_callback`` — the global array is
+    assembled without any cross-host data movement (SURVEY.md §7
+    layer 6)."""
     if mesh is None:
-        return fast_device_put(arr)
-    arr = _np.asarray(arr)
-    if not is_multiprocess(mesh):
-        return fast_device_put(arr)
+        return jax.device_put(arr)
+    arr = np.asarray(arr)
     sharding = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(DATA_AXIS)
     )
+    if not is_multiprocess(mesh):
+        return jax.device_put(arr, sharding)
     return jax.make_array_from_callback(
         arr.shape, sharding, lambda idx: arr[idx]
     )
@@ -100,7 +99,8 @@ def initialize_distributed(
     Must run before the JAX backend initializes (CLI mains call it
     right after ``setup_jax``).  On the CPU backend cross-process
     collectives need the gloo transport — selecting it is harmless on
-    TPU (the option only affects CPU executables), so it is always set."""
+    the GPU (the option only affects CPU executables), so it is always
+    set."""
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
     if coordinator_address is not None:
         jax.distributed.initialize(
@@ -112,6 +112,6 @@ def initialize_distributed(
     try:
         jax.distributed.initialize()
     except ValueError:
-        # no cluster env (TPU pod metadata, SLURM, ...) detected:
+        # no cluster env (SLURM, ...) detected:
         # single-process run, nothing to initialize
         logger.debug("no distributed environment detected; single host")

@@ -1,4 +1,4 @@
-"""Exact cross-device sequence-parallel forward (round-5).
+"""Exact cross-device sequence-parallel forward.
 
 SURVEY.md §2c SP/CP row names the associative operator composition "the
 basis for multi-chip sequence parallelism"; this module delivers that
@@ -18,21 +18,21 @@ regime where the batch dimension cannot hide the sequential scan
 (ops/assoc.py module docstring; Särkkä & García-Fernández 2021,
 PAPERS.md).
 
-Memory model (round-5 review fixes): the per-step operator a_t =
+Memory model: the per-step operator a_t =
 log_trans + obs_t is formed INSIDE the scan from the [Lc, S] obs rows
 — nothing [Lc, S, S]-shaped ever materializes — and the production
 scorer (`score_table_seqpar`) shards the raw SYMBOLS over the mesh and
 builds obs blockwise inside the sharded computation, so no device ever
-holds the whole sequence's observation matrix (the round-4 VERDICT's
-genome regime: 250M positions would be 20 GB of obs at S=20, let
-alone the one-hot temporaries).
+holds the whole sequence's observation matrix (in the genome regime,
+250M positions would be 20 GB of obs at S=20, let alone the one-hot
+temporaries).
 
 Cost trade-off: each operator-composition step is an S×S ⊗ S×S product
 (S× the FLOPs of the vector step), so per-chip THROUGHPUT is lower
 than the sequential vector scan for wide chunk batches — use this when
-latency of one long sequence bounds the run (bench:
-tools/bench_assoc.py; BASELINE.md round-5: the operator scan is
-nonetheless 3.8× the B=1 vector scan on the v5e, crossover D* ≈ 0.3).
+latency of one long sequence bounds the run.  tools/bench_assoc.py
+measures the crossover device count D* = t_op / t_vec (operator step
+vs B=1 vector step); not yet measured on the GPU.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ end-to-end:
 * per-position alpha/beta/gamma/value tables ``[B, L, S_loc]``.
 
 Each scan step reassembles the full S-vector with one ``all_gather``
-over the state axis (rides ICI) and takes global per-step normalizers
+over the state axis (NVLink between the cards of a host) and takes
+global per-step normalizers
 with ``pmax``; EM statistics are contracted locally ([S, S_loc] /
 [S_loc, T, V] blocks), ``psum``-merged over data, and gathered to
 replicated form only at the very end (tiny vs the scan).  The Viterbi

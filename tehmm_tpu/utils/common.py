@@ -2,9 +2,9 @@
 
 Counterpart of the reference's ``common.py`` (EPSILON smoothing constant,
 ``addLoggingOptions``/``setLoggingFromOptions``, safe-log helpers) — see
-SURVEY.md §2a "Shared utilities".  The TPU rebuild additionally defines a
+SURVEY.md §2a "Shared utilities".  The rebuild additionally defines a
 finite "log zero" so that parameter tables never hold IEEE ``-inf`` (an
-``-inf`` entry multiplied by a one-hot zero in the MXU emission matmul would
+``-inf`` entry multiplied by a one-hot zero in the emission matmul would
 produce NaN; a large negative finite value behaves identically in max-plus
 and exp() while staying NaN-safe).
 """

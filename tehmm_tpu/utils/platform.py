@@ -1,15 +1,15 @@
 """JAX platform/compile-cache setup for CLI entry points.
 
-Two quality-of-life knobs the reference never needed (pure NumPy) but a
-compiled-accelerator framework does:
-
 * ``TEHMM_PLATFORM`` env var (or the ``platform`` argument): force the
-  JAX backend, e.g. ``cpu`` for host-only runs.  Needed because some TPU
-  plugins force-register themselves and ignore ``JAX_PLATFORMS``.
-* Persistent XLA compilation cache (default ``~/.cache/tehmm_tpu/xla``,
-  disable with ``TEHMM_COMPILE_CACHE=0``): CLI tools are separate
-  processes, and TPU compiles of the scan kernels take tens of seconds —
-  the cache makes every invocation after the first start instantly.
+  JAX backend, e.g. ``cpu`` for host-only runs on a machine with a GPU.
+* Persistent XLA compilation cache: CLI tools are separate processes,
+  and the cache lets every invocation after the first skip its compiles.
+  Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+  nothing here sets another directory.  Otherwise the cache lives at the
+  fixed in-checkout path ``DEFAULT_CACHE_DIR`` (listed in .gitignore),
+  and only when the process will run on a GPU: XLA:CPU cache entries
+  record the compiling host's CPU features and must not be served to
+  another host.  ``TEHMM_COMPILE_CACHE=0`` disables the cache entirely.
 * ``TEHMM_DEBUG_NANS=1``: dev-mode NaN guard (SURVEY.md §5 race-detection
   row) — flips ``jax_debug_nans`` so the first NaN-producing op raises
   with its location instead of silently corrupting downstream scans.
@@ -21,11 +21,35 @@ Must run before any JAX backend is initialized (CLI mains call it first).
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def setup_jax(platform: str | None = None,
-              cache_dir: str | None = None) -> None:
+
+def _gpu_run_expected(jax) -> bool:
+    """True when this process will run on a GPU, decided without
+    initializing a backend: the platform is not pinned to the CPU and
+    JAX's CUDA plugin is installed."""
+    platforms = (jax.config.jax_platforms
+                 or os.environ.get("JAX_PLATFORMS") or "")
+    if platforms and "cuda" not in platforms and "gpu" not in platforms:
+        return False
+    for name in ("jax_plugins.xla_cuda12", "jax_plugins.xla_cuda13",
+                 "jax_cuda12_plugin", "jax_cuda13_plugin"):
+        try:
+            if importlib.util.find_spec(name) is not None:
+                return True
+        except ImportError:
+            continue
+    return False
+
+
+def setup_jax(platform: str | None = None) -> None:
     import jax
 
     platform = platform or os.environ.get("TEHMM_PLATFORM")
@@ -37,38 +61,22 @@ def setup_jax(platform: str | None = None,
     ):
         jax.config.update("jax_debug_nans", True)
 
-    cache = cache_dir or os.environ.get(
-        "TEHMM_COMPILE_CACHE", "~/.cache/tehmm_tpu/xla"
-    )
-    if cache and cache != "0":
-        # key the cache by a host-CPU fingerprint: XLA:CPU AOT entries
-        # record the compile machine's feature set, and a home directory
-        # shared across heterogeneous hosts otherwise serves stale AOT
-        # results ("Target machine feature ... not supported on the host
-        # machine ... could lead to execution errors such as SIGILL")
-        import hashlib
-        import platform as _plat
-
-        fp = hashlib.sha1(
-            f"{_plat.machine()}:{_cpu_flags_fingerprint()}".encode()
-        ).hexdigest()[:12]
-        path = os.path.join(os.path.expanduser(cache), fp)
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
+    if os.environ.get("TEHMM_COMPILE_CACHE", "").strip() == "0":
+        jax.config.update("jax_enable_compilation_cache", False)
+        return
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    if _gpu_run_expected(jax):
+        os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update(
-            "jax_persistent_cache_min_entry_size_bytes", 0
-        )
+        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 
-def _cpu_flags_fingerprint() -> str:
-    """The host CPU's feature flags (Linux) — distinguishes hosts whose
-    XLA:CPU AOT artifacts are mutually incompatible."""
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith("flags"):
-                    return " ".join(sorted(line.split(":", 1)[1].split()))
-    except OSError:
-        pass
-    return "unknown"
+def compile_cache_dir() -> str | None:
+    """The persistent compile-cache directory in effect, or None."""
+    import jax
+
+    if not jax.config.jax_enable_compilation_cache:
+        return None
+    return jax.config.jax_compilation_cache_dir

@@ -368,7 +368,7 @@ class TestCfgEmCli:
 
 
 class TestPackedGroupEngine:
-    """cfg_em_stats_g (G windows MXU-packed into one matmul tile) ==
+    """cfg_em_stats_g (G windows packed into one matmul tile) ==
     vmap(cfg_em_stats): same stats/gamma/bonus counts per window."""
 
     def test_packed_matches_vmapped(self, rng):
@@ -451,8 +451,7 @@ class TestPackedGroupEngine:
 
 class TestMeshParity:
     """CFG EM / decode sharded over the data mesh == single device
-    (round-3 VERDICT missing #4: the one SURVEY §2c DP row that didn't
-    cover the CFG family)."""
+    (the SURVEY §2c DP row covers the CFG family too)."""
 
     def _mesh(self, n=8):
         from tehmm_tpu.parallel.mesh import make_data_mesh

@@ -60,7 +60,7 @@ class TestGoldenParity:
 
     def test_viterbi_bed_bit_exact(self, workdir):
         """The production decode must reproduce the float64 oracle BED
-        byte-for-byte (BASELINE.md output-parity row)."""
+        byte-for-byte (BASELINE.json output-parity contract)."""
         from tehmm_tpu.cli import eval as cli_eval
         from tehmm_tpu.cli import train as cli_train
 

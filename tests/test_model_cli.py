@@ -357,7 +357,7 @@ class TestOversizedBatch:
 
     def test_fit_host_streamed_matches_resident(self, fixture_dir):
         """Datasets over the device staging budget train through the
-        host-streamed pass loop (round-3 VERDICT missing #2) — equal to
+        host-streamed pass loop — equal to
         all-resident training up to f32 stat-summation order (the
         budget may cap the streamed block size below the resident pass
         size, reordering the EmStats accumulation)."""

@@ -1,5 +1,4 @@
-"""Multi-host training integration test (SURVEY.md §7 layer 6; VERDICT
-round-1 item #4).
+"""Multi-host training integration test (SURVEY.md §7 layer 6).
 
 Launches TWO real OS processes connected through
 ``jax.distributed.initialize`` (gloo CPU collectives) running the train

@@ -393,8 +393,7 @@ class TestStateSharded:
 
     def test_maxpost_and_posterior_match_replicated(self, rng, make_hmm):
         """State-sharded maxPost / posterior == the replicated XLA
-        pipeline (round-3 VERDICT weak #5: every decode mode needs a
-        state-sharded twin).  Covers ragged lengths, L == 1, and
+        pipeline (every decode mode has a state-sharded twin).  Covers ragged lengths, L == 1, and
         zero-length mesh-padding rows."""
         from tehmm_tpu.parallel.mesh import make_data_state_mesh
         from tehmm_tpu.parallel.state_sharded import (

@@ -1,7 +1,6 @@
 """Reference-pickle import (io/refmodel.py, cli/import_model.py).
 
-Round-4 VERDICT missing #2 follow-up: a best-effort tolerant unpickler
-for teHmm model pickles shortens the reference-day gap.  The tests
+A best-effort tolerant unpickler for teHmm model pickles shortens the reference-day gap.  The tests
 build a SYNTHETIC reference-style pickle — classes laid out per the
 SURVEY.md §2a [R] reconstruction (sklearn-hmm startprob_/transmat_,
 IndependentMultinomialEmissionModel.logProbs, stateNameMap, per-track

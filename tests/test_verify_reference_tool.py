@@ -1,8 +1,7 @@
 """Self-test for tools/verify_reference.py against a synthetic stub.
 
-Round-3 VERDICT next-step #7: the reference-day script had never
-executed its stages 2-5 (the real mount has been empty every round) and
-had no self-test.  These tests fake a populated reference directory —
+The reference-day script cannot run its stages 2-5 while the reference
+mount is empty, so it needs a self-test.  These tests fake a populated reference directory —
 landmark files with the SURVEY symbols plus runnable
 teHmmTrain/teHmmEval stubs whose outputs derive from the repo's own
 goldens — so every stage (inventory, cites, run, diff) is exercised

@@ -10,8 +10,8 @@ mesh exists: on real hardware it sweeps the actual chips; in this
     python tools/bench_scaling.py                        # real devices, all
     python tools/bench_scaling.py --jsonl scaling.jsonl  # machine-readable out
 
-For each device count n in the sweep it times, with the two-chain
-marginal-rate protocol (BASELINE.md round 3):
+For each device count n in the sweep it times — median of ``--reps``
+warmed-up iterations, each ended by ``block_until_ready``:
 
 * **EM step** (`parallel.em_sharded.sharded_em_step`): the E-step psum +
   replicated M-step — the production `train --mesh` path.
@@ -25,7 +25,7 @@ thr(n) / (n * thr(1))); strong scaling holds the total batch constant
 
 Caveat (logged, not hidden): on a VIRTUAL CPU mesh all "devices" share
 the host's cores, so weak-scaling efficiency measures the sweep's
-correctness and the collective overhead, not real ICI scaling — n
+correctness and the collective overhead, not NVLink scaling — n
 virtual devices do n times the work on fixed silicon.  Numbers >=80%
 are only meaningful on real chips.
 """
@@ -36,7 +36,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,16 +51,15 @@ def _parse_args(argv=None):
     p.add_argument("--alphabetSize", type=int, default=8)
     p.add_argument("--batchPerDevice", type=int, default=None,
                    help="weak-scaling chunk rows per device "
-                        "(default: 256 on TPU, 8 on CPU)")
+                        "(default: 256 on a GPU, 8 on CPU)")
     p.add_argument("--totalBatch", type=int, default=None,
                    help="strong-scaling total chunk rows "
                         "(default: batchPerDevice * max devices)")
     p.add_argument("--length", type=int, default=None,
-                   help="chunk length (default: 1024 TPU, 256 CPU)")
-    p.add_argument("--iters", type=int, default=None, nargs=2,
-                   metavar=("N1", "N2"),
-                   help="two chain lengths for the marginal-rate "
-                        "protocol (default: 3 10 CPU, 10 40 TPU)")
+                   help="chunk length (default: 1024 GPU, 256 CPU)")
+    p.add_argument("--reps", type=int, default=None,
+                   help="timed iterations per point, median reported "
+                        "(default: 3 CPU, 10 GPU)")
     p.add_argument("--mode", choices=["em", "decode", "both"],
                    default="both")
     p.add_argument("--scaling", choices=["weak", "strong", "both"],
@@ -97,7 +95,7 @@ def main(argv=None) -> None:
     from jax.sharding import PartitionSpec as P
 
     from tehmm_tpu.models.params import init_random
-    from tehmm_tpu.ops import dp, em as em_ops
+    from tehmm_tpu.ops import dp
     from tehmm_tpu.parallel.em_sharded import sharded_em_step
     from tehmm_tpu.parallel.mesh import DATA_AXIS, make_data_mesh
     from tehmm_tpu.utils.platform import setup_jax
@@ -114,7 +112,7 @@ def main(argv=None) -> None:
     L = opts.length or (256 if on_cpu else 1024)
     bpd = opts.batchPerDevice or (8 if on_cpu else 256)
     total_b = opts.totalBatch or bpd * n_max
-    n1, n2 = opts.iters or ((3, 10) if on_cpu else (10, 40))
+    reps = opts.reps or (3 if on_cpu else 10)
 
     rng = np.random.RandomState(0)
     params = init_random(S, [V] * T, seed=0)
@@ -133,35 +131,15 @@ def main(argv=None) -> None:
             out_f.flush()
         print(line)
 
-    def marginal_time(run_chain):
-        # chain-granular variant of utils.profiling.marginal_time: the
-        # EM timer threads params THROUGH its chain (a dependent chain
-        # can't be expressed as repeated run() calls), so this sweeps
-        # whole chains and differences them; same two-point math.
-        run_chain(n1)                       # warm caches past compile
-        t1 = min(run_chain(n1), run_chain(n1))
-        t2 = min(run_chain(n2), run_chain(n2))
-        dt = (t2 - t1) / (n2 - n1)
-        # CPU noise can invert the two chains; the amortized long-chain
-        # rate is then the honest bound
-        return dt if dt > 0 else t2 / n2
+    from tehmm_tpu.utils.profiling import median_time
 
     def time_em(mesh, B):
         symbols = jnp.asarray(pool[:B])
         lengths = jnp.full((B,), L, dtype=jnp.int32)
-
-        def chain(n):
-            p = params
-            t0 = time.perf_counter()
-            for _ in range(n):
-                p, ll = sharded_em_step(
-                    p, symbols, lengths, sizes, mesh
-                )
-            _ = float(ll)
-            return time.perf_counter() - t0
-
-        chain(1)  # compile
-        return marginal_time(chain)
+        return median_time(
+            lambda: sharded_em_step(params, symbols, lengths, sizes, mesh),
+            reps,
+        )
 
     def time_decode(mesh, B):
         symbols = jnp.asarray(pool[:B])
@@ -171,29 +149,16 @@ def main(argv=None) -> None:
             from tehmm_tpu.models.emission import track_log_likelihoods
 
             obs = track_log_likelihoods(params.log_em, symbols)
-            paths, score = dp.viterbi(
+            return dp.viterbi(
                 params.log_start, params.log_trans, obs, lengths
             )
-            # scalar checksum forces full materialization of the decode
-            chk = score.sum() + paths.sum(dtype=jnp.float32)
-            return jax.lax.psum(chk, DATA_AXIS)
 
         fn = jax.jit(jax.shard_map(
             local, mesh=mesh,
             in_specs=(P(), P(DATA_AXIS), P(DATA_AXIS)),
-            out_specs=P(),
+            out_specs=(P(DATA_AXIS), P(DATA_AXIS)),
         ))
-
-        def chain(n):
-            acc = jnp.zeros((), jnp.float32)
-            t0 = time.perf_counter()
-            for _ in range(n):
-                acc = acc + fn(params, symbols, lengths)
-            _ = float(acc)
-            return time.perf_counter() - t0
-
-        chain(1)
-        return marginal_time(chain)
+        return median_time(lambda: fn(params, symbols, lengths), reps)
 
     timers = {"em": time_em, "decode": time_decode}
     modes = ["em", "decode"] if opts.mode == "both" else [opts.mode]

@@ -2,7 +2,7 @@
 
 Exercises the full production path at realistic scale on the local
 accelerator and prints wall-clock for every stage — the shape of run a
-user doing TE annotation on a real genome would see (BASELINE.md
+user doing TE annotation on a real genome would see (BASELINE.json
 milestone configs #2-#4).  Default: 50M positions, 20 states, 5 tracks.
 
 Run:  python tools/demo_genome_scale.py [--positions N] [--states S]

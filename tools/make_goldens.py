@@ -7,7 +7,7 @@ repo's float64 NumPy oracle (tehmm_tpu/oracle.py — written in the
 reference's O(L·S²) loop style, validated against brute-force
 enumeration).  When the reference becomes available, re-run it on
 tests/data and diff against these files; tests/test_golden.py asserts the
-production TPU pipeline reproduces them (BED bit-exact, parameters to
+production device pipeline reproduces them (BED bit-exact, parameters to
 f32 tolerance).
 
 Run from the repo root:  python tools/make_goldens.py

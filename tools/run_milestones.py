@@ -1,11 +1,11 @@
 """Run the BASELINE.json milestone configurations end-to-end.
 
-Configs (BASELINE.md):
+Configs (BASELINE.json):
   1. 2-state / 1 binary track, small chunk — CPU-runnable parity
   2. 10-state / 5 tracks, supervised Viterbi decode of one chromosome
   3. 20-state unsupervised EM to convergence, single chip
   4. 40-state / 15 tracks, chunked decode + EM psum across 8 devices
-     (virtual CPU mesh here; 8 real chips on a v5e-8)
+     (virtual CPU mesh without cards; real GPUs where present)
   5. 64-state / 20 tracks, multi-host — dry-run compiled via
      __graft_entry__.dryrun_multichip (no pod in this environment)
 
@@ -52,7 +52,7 @@ def _planted_dataset(rng, n_states, n_tracks, alphabet, length):
 
 def config1():
     """2-state, 1 track, bit parity vs the float64 oracle (runs on the
-    default backend — CPU and TPU must both reproduce the oracle)."""
+    default backend — CPU and GPU must both reproduce the oracle)."""
     import jax.numpy as jnp
 
     from tehmm_tpu import oracle
